@@ -1,12 +1,13 @@
-"""smafa_tpu: a TPU-native engine for searching and greedy-clustering databases
+"""smafa_tpu: a JAX engine for searching and greedy-clustering databases
 of pre-aligned, equal-length nucleotide sequences.
 
 Capability-parity rebuild of the reference tool smafa (wwood/smafa, see
-/root/reference/src/{main.rs,lib.rs,cluster.rs}) designed TPU-first:
+/root/reference/src/{main.rs,lib.rs,cluster.rs}) designed for the GPU:
 
-- Sequences are encoded as 5-channel one-hot int8 tensors in HBM.
+- Sequences are encoded as compact int8 tensors in device memory.
 - The reference's per-pair ``popcount(a ^ b) / 2`` Hamming scan
-  (reference lib.rs:80-88) becomes a single batched int8 matmul on the MXU:
+  (reference lib.rs:80-88) becomes a single batched int8 matmul on the
+  tensor cores:
   ``distance[b, w] = L - Q[b, L*5] @ D[w, L*5]^T``.
 - Hit selection is sort-free: packed ``(distance << shift) | index``
   keys reduce with integer ``min`` (the reference's lowest-index tie

@@ -18,7 +18,7 @@ Errors print their message to stderr and exit 101, matching the visible
 behavior of the reference's panics (the version-gate test only asserts
 stderr contains the message and a nonzero exit, tests/test_cmdline.rs:28-41).
 
-Extensions beyond the reference surface (TPU framework level):
+Extensions beyond the reference surface:
 ``makedb --format {postcard,native}`` and ``query --batch-size``.
 """
 
@@ -63,7 +63,7 @@ AUTHOR_AND_EMAIL = (
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="smafa",
-        description="Read aligner for small pre-aligned sequences (TPU-native engine)",
+        description="Read aligner for small pre-aligned sequences (JAX engine)",
         epilog=AUTHOR_AND_EMAIL,
     )
     from smafa_tpu import __version__
@@ -80,7 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Output DB filename [required]")
     p.add_argument("--format", choices=["postcard", "native"], default="postcard",
                    help="DB file format: reference-compatible 'postcard' (default) "
-                        "or TPU-native sharded 'native'")
+                        "or the mmap-able sharded 'native'")
     _add_verbosity(p)
 
     # long_about text and numbered-list formatting per reference

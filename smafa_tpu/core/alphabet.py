@@ -8,7 +8,7 @@ Semantics pinned to the reference LUT (reference lib.rs:167-196 ``create_lut``):
 - anything else is invalid (the reference encodes it as 0 and panics,
   lib.rs:36-43)
 
-The TPU-native canonical representation is the *channel index* 0..4
+The engine's canonical representation is the *channel index* 0..4
 (A,C,G,T,N) stored as uint8, which expands to a one-hot int8 vector on
 device. The reference's 5-bit one-hot codes (A=0b10000 .. N=0b00001,
 lib.rs:171-180) are kept as a secondary representation for byte-exact

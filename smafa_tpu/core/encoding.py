@@ -2,7 +2,7 @@
 
 The reference packs 12 bases per u64, base *i* of a chunk occupying bits
 ``5*i .. 5*i+4`` with bits 60-63 zero (reference lib.rs:29-52
-``SeqEncodingLength::from_bytes``). The TPU framework keeps channel-index
+``SeqEncodingLength::from_bytes``). This engine keeps channel-index
 arrays as its canonical form; the packed form is used for
 
 - byte-exact (de)serialization of reference postcard v2 databases,

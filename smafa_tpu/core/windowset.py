@@ -1,6 +1,6 @@
 """WindowSet: the database / centroid container.
 
-TPU-native equivalent of the reference's ``WindowSet`` struct
+Equivalent of the reference's ``WindowSet`` struct
 (reference lib.rs:54-135): a versioned list of equal-length encoded
 sequences. Here the storage is a dense uint8 channel-index matrix
 ``[num_windows, length]`` — the layout that expands directly to the

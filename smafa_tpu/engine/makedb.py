@@ -3,7 +3,7 @@
 Parity with reference ``makedb`` (reference lib.rs:137-165): enforces
 uniform sequence length with the same error texts, and by default writes
 the byte-exact postcard v2 format (so the output is interchangeable with
-reference-produced dbs). ``fmt="native"`` writes the TPU-native sharded
+reference-produced dbs). ``fmt="native"`` writes the mmap-able sharded
 format instead (see smafa_tpu.io.native_format) for large-scale serving.
 """
 

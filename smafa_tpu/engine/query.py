@@ -1,4 +1,4 @@
-"""query op: scan a query FASTX stream against a db on TPU.
+"""query op: scan a query FASTX stream against a db on the device.
 
 Semantics are pinned line-by-line to reference ``query`` (reference
 lib.rs:198-325):
@@ -18,7 +18,7 @@ lib.rs:198-325):
 - Output line: ``{query_number}\t{subject_idx}\t{distance}\t{decoded}``
   with query_number counting records from 0 (lib.rs:231,292,310).
 
-TPU execution: the db lives on device as a one-hot int8 tensor. Best-hit
+Device execution: the db lives on device as uint8 codes. Best-hit
 mode is two fused passes at most: phase A (dispatched ahead) is a
 dual-packed-key min scan fused with an exact tie count — rows with <= 2
 ties are fully resolved by it — and batches containing a row with more
@@ -89,28 +89,19 @@ class _DbOnDevice:
 
 def _auto_batch(db: "_DbOnDevice") -> int:
     """Bigger query batches for bigger dbs: per-batch device compute then
-    dominates dispatch latency, and the scan kernel's throughput rises
-    with B (HBM reads of the db amortize over more queries). The
-    out-of-core layout goes biggest — there the whole db crosses PCIe
-    once per batch, and every doubling of B halves that traffic per
-    query."""
+    dominates dispatch latency, and the scan's throughput rises with B
+    (db reads amortize over more queries). The out-of-core layout goes
+    biggest — there the whole db crosses PCIe once per batch, and every
+    doubling of B halves that traffic per query. The thresholds are not
+    yet measured on the H100."""
     from smafa_tpu.parallel.slab import SlabStreamRunner
 
     if isinstance(db.runner, SlabStreamRunner):
         return 65536
     n_windows = db.n_windows
     if n_windows >= 1 << 22:
-        # With the rank-4 embedding the matmul is 1.5x cheaper and the
-        # scan is even more read-amortization-bound: measured 355 ->
-        # 381 e9 cmp/s going 32k -> 64k at 4M rows (embed,
-        # codes-resident, same session). Per-batch latency there is
-        # ~0.7 s — fine at multi-million-row scale.
         return 65536
     if n_windows >= 1 << 20:
-        # Scan throughput keeps rising with B as db HBM reads amortize:
-        # measured 293/319/333 e9 cmp/s at B=16k/32k/64k (4M rows,
-        # codes-resident, chunk 16384) — 32k trades a 0.4 s per-batch
-        # latency for +9% over 16k.
         return 32768
     if n_windows >= 1 << 19:
         return 16384

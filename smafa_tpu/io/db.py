@@ -1,6 +1,6 @@
 """Database auto-detecting loader.
 
-``query`` accepts either format: the TPU-native sharded format (magic
+``query`` accepts either format: the native sharded format (magic
 b"SMAFATPU") or a reference-compatible postcard v2 db. Postcard dbs have a
 version varint as their first byte, so the formats are unambiguous; a
 postcard db with version != 2 raises the reference's exact error text

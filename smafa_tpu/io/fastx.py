@@ -10,7 +10,7 @@ records are the standard 4-line form.
 
 A batched interface (``read_encoded_batches``) feeds the device pipeline:
 it encodes records into dense channel-index matrices off the hot path so
-the TPU never waits on per-record Python work. When the native C++ ingest
+the device never waits on per-record Python work. When the native C++ ingest
 extension is built it is used automatically for the parse+encode step.
 """
 

@@ -1,4 +1,4 @@
-"""TPU-native sharded db format.
+"""Native sharded db format (mmap-able; this project's own).
 
 The reference's postcard format (reference lib.rs:160-162) is a serial
 varint stream — fine for small dbs, hostile to mmap and sharded loading.

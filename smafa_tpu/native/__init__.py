@@ -1,10 +1,13 @@
 """Native (C++) host-runtime components and their loader.
 
-The reference's entire runtime is native Rust; per the TPU-framework rule
-its host-side hot paths get native C++ equivalents here, loaded via
-ctypes. Build is lazy and cached: first import compiles ``fastx.cpp`` with
-g++ -O3 into ``_build/`` next to this file; failures degrade gracefully to
-the pure-Python implementations (same semantics, slower).
+The reference's entire runtime is native Rust; its host-side hot paths
+get native C++ equivalents here, loaded via ctypes. Build is lazy and
+cached: first use compiles ``fastx.cpp`` with g++ into ``_build/`` next to
+this file, under a name keyed on the source, the compiler flags and the
+host (``-march=native`` code is only valid on the CPU it was built for,
+so a tree copied to another machine rebuilds instead of reusing it);
+failures degrade gracefully to the pure-Python implementations (same
+semantics, slower).
 
 Set ``SMAFA_TPU_NO_NATIVE=1`` to force the Python fallbacks (used by tests
 to cover both paths).
@@ -13,8 +16,10 @@ to cover both paths).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
+import platform
 import subprocess
 import sys
 import threading
@@ -33,16 +38,29 @@ def _disabled() -> bool:
     return os.environ.get("SMAFA_TPU_NO_NATIVE", "") not in ("", "0")
 
 
+_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+
+
+def build_key(src: bytes, flags: tuple[str, ...] = _FLAGS,
+              host: str | None = None) -> str:
+    """Name of the built library for this source, flag set and host."""
+    if host is None:
+        host = f"{platform.node()}|{platform.machine()}|{platform.processor()}"
+    h = hashlib.sha256()
+    for part in (src, " ".join(flags).encode(), host.encode()):
+        h.update(part)
+        h.update(b"\0")
+    return f"libsmafa_native-{h.hexdigest()[:16]}.so"
+
+
 def _compile() -> Path | None:
     src = _HERE / "fastx.cpp"
-    out = _BUILD / "libsmafa_native.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    out = _BUILD / build_key(src.read_bytes())
+    if out.exists():
         return out
     _BUILD.mkdir(exist_ok=True)
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        str(src), "-o", str(out),
-    ]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", *_FLAGS, str(src), "-o", str(tmp)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired) as e:
@@ -50,7 +68,9 @@ def _compile() -> Path | None:
         return None
     if proc.returncode != 0:
         logger.debug("native build failed:\n%s", proc.stderr)
+        tmp.unlink(missing_ok=True)
         return None
+    tmp.replace(out)  # atomic: concurrent builders never load a torn file
     return out
 
 

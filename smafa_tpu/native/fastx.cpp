@@ -1,6 +1,6 @@
 // Native FASTX ingest: parse + nucleotide-encode in one pass over a buffer.
 //
-// TPU-native replacement for the host-side hot path the reference delegates
+// Native replacement for the host-side hot path the reference delegates
 // to the needletail crate (reference lib.rs:143-144, 221; cluster.rs:28).
 // The device never waits on per-record Python work: this parser emits, in
 // one scan over the (already gunzipped) file bytes,
@@ -386,9 +386,8 @@ int64_t tsv_format(const int64_t* qnum, const int32_t* subj,
 
 }  // extern "C"
 
-// Multithreaded formatter: the single-threaded loop above tops out at
-// ~2.2M lines/s — the measured ceiling that made K-mode's extraction and
-// the emitter mutually-excusing bottlenecks. Lines are independent, so:
+// Multithreaded formatter: the single-threaded loop above is bounded by
+// one core. Lines are independent, so:
 // pass 1 computes each line's EXACT byte length (digit counts), a prefix
 // sum gives every row's output offset, then threads fill disjoint gapless
 // ranges of the single output buffer in place — no per-thread buffers, no
@@ -475,9 +474,8 @@ int64_t tsv_format_mt(const int64_t* qnum, const int32_t* subj,
 
 // Decode-fused variant: takes the db's CHANNEL CODES directly and
 // decodes each hit's subject row through a 256-byte LUT inside the
-// fill threads — eliminating the numpy decoded-blob gather that
-// measured 52% of the emit path (440 ms of an 842 ms 2M-line emit;
-// docs/PERFORMANCE.md round 5). The LUT is 256-wide so a corrupted
+// fill threads — eliminating the numpy decoded-blob gather, a large
+// share of the emit path. The LUT is 256-wide so a corrupted
 // code byte can never read out of bounds.
 int64_t tsv_format_codes_mt(const int64_t* qnum, const int32_t* subj,
                             const int32_t* dist, const uint8_t* db_codes,
@@ -597,8 +595,8 @@ int64_t dedup_filter(void* h, const uint8_t* codes, int64_t n, int64_t len,
 // the device one-hot dot semantics: a column matches iff the channel
 // indices are equal). The cluster engine's intra-batch resolution needs
 // [batch, fails] blocks of this; the numpy 5-channel float32 matmul form
-// measured 13.7 s at [16384, 4000] x 60 bp (five skinny memory-bound
-// matmuls) where this byte loop auto-vectorizes to well under a second.
+// is five skinny memory-bound matmuls, where this byte loop
+// auto-vectorizes.
 #if defined(__SSE2__)
 #include <emmintrin.h>
 #endif

@@ -71,7 +71,7 @@ def format_hits_tsv_codes(
     """Decode-fused bulk TSV formatter: gathers and decodes each hit's
     subject row from the db's channel codes inside the threaded C++
     fill, so no [hits, L] decoded blob is ever materialized in numpy
-    (that gather measured 52% of the emit path). Returns None when the
+    (that gather is a large share of the emit path). Returns None when the
     native library is unavailable or the codes view is not contiguous
     (callers fall back to the blob path)."""
     lib = load()

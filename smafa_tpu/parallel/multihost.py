@@ -1,13 +1,13 @@
 """Multi-host bring-up + per-process db loading.
 
 The reference is one OS thread on one machine (SURVEY.md §2.2); this is
-the scale-out the BASELINE.json multi-host config asks for (10M-row db on
-a v5e-16, 2+ hosts). Design:
+the scale-out the BASELINE.json multi-GPU config asks for (a 10M-row db
+sharded over several devices and hosts). Design:
 
 - ``initialize()`` wraps ``jax.distributed.initialize`` (NCCL/MPI-free:
   the only backend is XLA's own coordination service + compiled
   collectives).
-- The db lives in the TPU-native format (io.native_format), which is
+- The db lives in the native format (io.native_format), which is
   row-sliceable with zero decode cost: ``load_runner`` memmaps the file
   and hands it to ScanRunner, whose process-aware path device_puts ONLY
   the row ranges this host's devices own (memmap pages outside them are
@@ -15,7 +15,7 @@ a v5e-16, 2+ hosts). Design:
   ``jax.make_array_from_single_device_arrays``.
 - Every hit mode (min2 / best-hit / K-mode / top-M) then runs through
   the single ScanRunner implementation: packed-key pmin + psum merges
-  compile to ICI collectives within a host and DCN between hosts, and
+  compile to collectives within a host (NVLink) and between hosts, and
   results come back replicated so process 0 can emit the ordered TSV
   (output order contract: reference lib.rs:250, 261).
 

@@ -2,18 +2,18 @@
 
 The ('q', 'w') ScanRunner (parallel.sharded) keeps queries replicated
 within a q-group and merges per-shard results over 'w'. This module is
-the other canonical TPU topology (SURVEY.md §2.2 "ring/blockwise"):
+the other canonical multi-device layout (SURVEY.md §2.2 "ring/blockwise"):
 BOTH the query batch and the db rows are sharded over one flat 'd' axis,
 and every step each device scans its resident query block against the db
 shard it currently holds, then forwards that shard to its ring neighbor
-with ``lax.ppermute`` (ICI neighbor traffic only — the db is never
+with ``lax.ppermute`` (neighbor traffic only — the db is never
 all-gathered and no device ever holds more than 1/n of it). After n steps
 every query block has met every db row. Running packed-key minima /
 histograms / compaction buffers are the only cross-step state.
 
-This is the layout for dbs at the 10M-row scale (BASELINE.json multi-host
-config) where per-device HBM cannot hold a replicated db and candidate
-all-gathers would ride DCN. It is the Hamming-scan analogue of ring
+This is a layout for dbs at the 10M-row scale (BASELINE.json multi-host
+config) where per-device memory cannot hold a replicated db and candidate
+all-gathers would cross hosts. It is the Hamming-scan analogue of ring
 attention: rotate the KV (db) blocks, keep running reductions instead of
 softmax accumulators.
 
@@ -91,7 +91,7 @@ class RingScanRunner(HitModesMixin):
         from smafa_tpu.parallel.sharded import _db_codes_resident
 
         if _db_codes_resident():
-            # Rotating uint8 codes moves 6.4x less ICI per ppermute hop
+            # Rotating uint8 codes moves 6.4x fewer bytes per ppermute hop
             # than one-hot; the sweep expands per chunk.
             self.db_oh = codes_dev
         else:
@@ -154,7 +154,7 @@ class RingScanRunner(HitModesMixin):
 
             carry, _ = jax.lax.scan(step, carry, offsets)
             db_nxt = jax.lax.cond(
-                i < n_d - 1,  # final rotation would be wasted ICI traffic
+                i < n_d - 1,  # final rotation would be wasted traffic
                 lambda x: jax.lax.ppermute(x, "d", fwd),
                 lambda x: x, db_cur,
             )
@@ -180,26 +180,21 @@ class RingScanRunner(HitModesMixin):
     # -- compiled programs ---------------------------------------------------
 
     def _build_pallas_min2(self, b: int):
-        """Mosaic min2 ring sweep: rotate the uint8 codes shards (6.4x
-        less ICI than one-hot), embed each incoming shard into the
-        poisoned rank-4 twin (VPU work O(shard_rows * EP) per step —
-        negligible against the kernel's O(b_loc * shard_rows * EP) MXU
-        contraction), and run min2_scan_pallas per step. Per-step keys
-        are shard-local; they decode to (dist, index) and fold into
+        """Fused-kernel min2 ring sweep: rotate the uint8 codes shards
+        (6.4x less interconnect traffic than one-hot), embed each
+        incoming shard into the poisoned db twin (O(shard_rows * K) work
+        per step — negligible against the kernel's O(b_loc * shard_rows
+        * K) contraction), and run min2_scan_pallas per step. Per-step
+        keys are shard-local; they decode to (dist, index) and fold into
         explicit pair carries with the fused tie count, so the output
         is the pair-handle format regardless of the shift mode."""
-        import os
-
         from smafa_tpu.ops import pallas_scan as PS
 
         seq_len, shift = self.seq_len, self.shift
         n_d, shard_rows = self.n_d, self.shard_rows
-        interpret = (os.environ.get("SMAFA_TPU_PALLAS_MIN2", "")
-                     == "interpret")
+        interpret = PS.interpret_requested()
         with_count = PS.min2_count_enabled()
-        tile_b, tile_w, sub = PS.pick_min2_tiles(
-            b // n_d, shard_rows, interpret
-        )
+        tiles = PS.pick_min2_tiles(b // n_d, shard_rows, interpret)
 
         def shard_fn(q_emb, db_shard, n_windows):
             me = jax.lax.axis_index("d").astype(jnp.int32)
@@ -216,10 +211,9 @@ class RingScanRunner(HitModesMixin):
                 (d, il, ih, cnt), db_cur = state
                 owner = (me - i) % n_d
                 off = owner * shard_rows
-                emb = PS.embed_db_with_zc(db_cur, seq_len, n_windows - off)
+                emb, base = PS.embed_db_twin(db_cur, seq_len, n_windows - off)
                 outs = PS.min2_scan_pallas(
-                    q_emb, emb, seq_len, shift,
-                    tile_b=tile_b, tile_w=tile_w, sub=sub,
+                    q_emb, emb, base, shift, tiles,
                     interpret=interpret, with_count=with_count,
                 )
                 lo, hi = outs[0], outs[1]
@@ -264,7 +258,7 @@ class RingScanRunner(HitModesMixin):
 
         @jax.jit
         def run(q_codes, db_oh, n_windows):
-            return {"pair": mapped(PS.embed_query_with_one(q_codes, seq_len_),
+            return {"pair": mapped(PS.embed_query(q_codes, seq_len_),
                                    db_oh, n_windows)}
 
         return run

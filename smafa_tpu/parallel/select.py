@@ -10,14 +10,14 @@ Three layouts implement the same exact hit-mode contract
   including the 10M-row scale (per-device HBM holds rows/n_devices).
 - ``ring`` — RingScanRunner, 1-D 'd' ring: queries AND rows sharded over
   the same axis; db shards rotate via ppermute. Rotation streams the
-  whole db through ICI once per batch, so it only wins when the query
-  side is too large to replicate (huge resident batches) or when
-  all-to-device merge traffic must stay neighbor-local; it is selected
-  via SMAFA_TPU_LAYOUT=ring, not auto.
+  whole db through the interconnect once per batch, so it only wins
+  when the query side is too large to replicate (huge resident
+  batches) or when all-to-device merge traffic must stay
+  neighbor-local; it is selected via SMAFA_TPU_LAYOUT=ring, not auto.
 - ``col`` — ColumnShardedScanRunner, 1-D 'c' axis: the one-hot FEATURE
   axis is sharded and distances are psum-reassembled — the sequence-
   parallel layout for very long windows, auto-selected when the window
-  is so long that a single device's MXU tile is contraction-bound
+  is so long that a single device's matmul is contraction-bound
   (seq_len >= SMAFA_TPU_COL_SEQ_THRESHOLD, default 8192).
 
 A fourth layout handles dbs the resident three cannot:
@@ -28,8 +28,7 @@ A fourth layout handles dbs the resident three cannot:
   resident db form (uint8 codes by default, one-hot under
   SMAFA_TPU_DB_CODES=0) would overflow the visible devices' HBM (the
   reference, at 40 packed bytes/row in host RAM, handles such dbs on
-  any big-RAM box — reference lib.rs:54-60 — so the TPU build must
-  too).
+  any big-RAM box — reference lib.rs:54-60 — so this build must too).
 
 ``SMAFA_TPU_LAYOUT`` ∈ {auto, sharded, ring, col, stream} overrides the
 choice (the forced values are exercised by the golden/fuzz suites).
@@ -57,37 +56,14 @@ COL_SEQ_THRESHOLD = 8192
 HBM_FRACTION = 0.75
 
 
-# Per-chip HBM for TPU generations whose runtime does not report
-# memory_stats (tunneled/plugin backends): first matching substring of
-# device_kind wins; unknown TPUs get the smallest current-generation
-# chip so capacity decisions stay conservative.
-_TPU_HBM_GIB = (
-    ("v5 lite", 16), ("v5e", 16), ("v6 lite", 32), ("v6e", 32),
-    ("v5p", 95), ("v4", 32), ("v3", 16), ("v2", 8),
-)
-_FALLBACK_TPU_GIB = 16
-
-
-def _kind_capacity(d) -> int | None:
-    """Estimated HBM for a device whose backend reports no memory stats:
-    known TPU generations by device_kind; None for anything else (no
-    guessing on CPU meshes or unknown accelerators)."""
-    if d.platform != "tpu" and "TPU" not in d.device_kind:
-        return None
-    kind = d.device_kind.lower()
-    for pat, gib in _TPU_HBM_GIB:
-        if pat in kind:
-            return gib << 30
-    return _FALLBACK_TPU_GIB << 30
-
-
 def _hbm_capacity(per_device: bool = False) -> int | None:
     """Device memory in bytes — TOTAL across visible devices by default,
-    or one device's share with ``per_device=True`` — or None when the
-    backend does not report it and no TPU-generation estimate applies
-    (CPU meshes). SMAFA_TPU_HBM_BYTES overrides and ALWAYS means the
-    total across visible devices (also how tests force the out-of-core
-    decisions)."""
+    or one device's share with ``per_device=True`` — as the backend
+    reports it (``memory_stats()["bytes_limit"]``). None on CPU meshes,
+    which report no capacity. An accelerator that reports none is an
+    error, not a guess. SMAFA_TPU_HBM_BYTES overrides and ALWAYS means
+    the total across visible devices (also how tests force the
+    out-of-core decisions)."""
     import jax
 
     env = os.environ.get("SMAFA_TPU_HBM_BYTES")
@@ -96,18 +72,17 @@ def _hbm_capacity(per_device: bool = False) -> int | None:
     else:
         total = 0
         for d in jax.devices():
-            stats = None
-            try:
-                stats = d.memory_stats()
-            except Exception:
-                pass
+            stats = d.memory_stats()
             if stats and "bytes_limit" in stats:
                 total += int(stats["bytes_limit"])
                 continue
-            est = _kind_capacity(d)
-            if est is None:
+            if d.platform == "cpu":
                 return None
-            total += est
+            raise RuntimeError(
+                f"device {d.device_kind!r} ({d.platform}) reports no memory "
+                "capacity (memory_stats() has no bytes_limit); set "
+                "SMAFA_TPU_HBM_BYTES to the total device memory in bytes"
+            )
     if not total:
         return None
     return total // len(jax.devices()) if per_device else total

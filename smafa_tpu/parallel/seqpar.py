@@ -2,7 +2,7 @@
 
 SingleM windows are short (60 bp), but the framework supports arbitrary
 uniform lengths; for very long windows a single device may not hold the
-one-hot db (or the MXU tile becomes contraction-bound). This runner
+one-hot db (or the matmul becomes contraction-bound). This runner
 shards the feature axis (L*5 one-hot columns) over a 'c' mesh axis: each
 device computes a partial match count over its column slice, a ``psum``
 over 'c' reassembles exact distances, and all selection state (packed-key

@@ -1,12 +1,11 @@
 """Out-of-core db layout: slab-streamed scans for dbs larger than HBM.
 
 The resident layouts (sharded/ring/col) hold the db tensor in device
-memory — uint8 codes by default (60 bytes/row at 60 bp, ~200M rows per
-16 GB chip at the 0.75 HBM fraction), one-hot when forced
-(SMAFA_TPU_DB_CODES=0: 384 bytes/row, ~35M rows). The
+memory — uint8 codes by default (60 bytes/row at 60 bp), one-hot when
+forced (SMAFA_TPU_DB_CODES=0: 384 bytes/row). The
 reference, whose db is 40 bytes/row of packed u64 in host RAM
 (reference lib.rs:54-60), handles such dbs on any machine with enough
-RAM; this layout restores that capability TPU-natively:
+RAM; this layout restores that capability on the device:
 
 - the channel codes stay host-side (usually the native format's memmap,
   io/native_format.py — nothing is ever fully materialized in RAM
@@ -16,7 +15,7 @@ RAM; this layout restores that capability TPU-natively:
   than one-hot), expanded to one-hot on device, scanned, and folded
   into a small carried accumulator (packed min keys / histogram /
   stats counts), exactly the pmin/psum merges the sharded layout does
-  over ICI (parallel/sharded.py) applied over time instead of space;
+  across devices (parallel/sharded.py) applied over time instead of space;
 - dispatch is async, so slab k+1's upload overlaps slab k's scan; a
   periodic barrier bounds the number of in-flight slab buffers (the
   whole point is a bounded device working set);
@@ -63,7 +62,7 @@ SLAB_BYTES = 1 << 29
 
 # Dispatch at most this many slab programs ahead of execution before
 # draining: bounds in-flight uint8 slab buffers (device memory) and
-# keeps the upload pipeline ahead of the MXU by a couple of slabs.
+# keeps the upload pipeline ahead of the scan by a couple of slabs.
 _INFLIGHT = 4
 
 # Cache the uint8 code slabs on device when they total at most this

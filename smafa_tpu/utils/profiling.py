@@ -1,7 +1,7 @@
 """Tracing / profiling / throughput counters.
 
 The reference only logs coarse wall times (reference lib.rs:207, 320-323;
-cluster.rs:18, 87-92). The TPU framework adds (SURVEY.md §5):
+cluster.rs:18, 87-92). This engine adds (SURVEY.md §5):
 
 - per-stage cumulative timers (parse+encode / device scan / emit),
 - throughput counters (records, query x window comparisons),

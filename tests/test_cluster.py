@@ -39,7 +39,7 @@ def test_best_hit_changes_bug():
 
 
 def test_batch_boundary_invariance():
-    # The TPU engine batches an inherently sequential algorithm; output must
+    # The engine batches an inherently sequential algorithm; output must
     # be identical for every batch size (intra-batch promotion resolution).
     ref = run_cluster("tests/data/cluster_best_hit_changes.fna", 2, batch_size=512)
     for bs in (1, 2, 3):
@@ -69,7 +69,7 @@ def test_adaptive_batches_identical(tmp_path, monkeypatch):
 
 def test_pipeline_depth_latency_auto(monkeypatch):
     # Round 5: pipeline depth self-corrects from the measured link
-    # latency (tunnel -> 1, local -> 2); output is byte-identical
+    # latency (slow link -> 1, local -> 2); output is byte-identical
     # either way, and an explicit SMAFA_TPU_CLUSTER_PIPELINE pins it.
     ref = run_cluster("tests/data/cluster_best_hit_changes.fna", 2,
                       batch_size=2)

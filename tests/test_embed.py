@@ -62,7 +62,7 @@ def test_block_distances_embed_inference(L):
 
 
 def test_embed_inactive_when_padding_equal():
-    # 5L and 4L pad to the same lane multiple -> no MXU saving, and the
+    # 5L and 4L pad to the same lane multiple -> no matmul saving, and the
     # query width would be ambiguous: embed_active must be False.
     for L in (25, 100):
         assert D.padded_embed_dim(L) == D.padded_feature_dim(L)

@@ -26,3 +26,8 @@ def test_dryrun_multichip_eight_devices():
 def test_dryrun_multichip_odd_factorization():
     # 6 factorizes to a (2, 3) mesh — exercises the non-square branch.
     graft.dryrun_multichip(6)
+
+
+def test_dryrun_multichip_four_devices():
+    # the four-card layout: a (1, 4) mesh, as on one four-GPU host
+    graft.dryrun_multichip(4)

@@ -326,7 +326,7 @@ def test_stream_codes_resident_tier(monkeypatch):
 ])
 def test_codes_resident_db_parity(tmp_path, monkeypatch, layout, mode):
     # The db is resident as uint8 channel codes by default (6.4x more
-    # rows per chip, measured faster); scans expand per chunk
+    # rows per device); scans expand per chunk
     # (distance.block_distances) and must stay byte-identical to the
     # one-hot-resident form (SMAFA_TPU_DB_CODES=0).
     rng = np.random.default_rng(37)

@@ -46,7 +46,7 @@ def _strip_gloo(s: str) -> str:
     """Drop CPU-Gloo stdout artifacts: "[Gloo]" banners, bare
     "<rank> is connected to N peer ranks" lines (sometimes unprefixed),
     and stray blank lines — TSV output never contains any of these.
-    Real TPU pods (ICI/DCN collectives) emit nothing."""
+    Real multi-host runs emit nothing."""
     return "".join(
         l for l in s.splitlines(keepends=True)
         if l.strip() and not l.startswith("[Gloo]") and "peer ranks" not in l

@@ -3,7 +3,7 @@ program (parallel.sharded._build_bestfull via hitops.bestfull_async).
 
 The contract: byte-identical best-hit results to the 3-wave path
 (min2 -> tcount -> miditer || compact) in every configuration — mesh
-shapes, Mosaic pass-1, selection overflow, heavy tie tails, divergence
+shapes, fused-kernel pass-1, selection overflow, heavy tie tails, divergence
 filters — since the one-wave program is a latency optimization, never a
 semantics change (reference lib.rs:296-314).
 """
@@ -131,7 +131,7 @@ def test_onewave_heavy_tail(monkeypatch):
 
 
 def test_onewave_mosaic_pass1(monkeypatch):
-    """Mosaic (interpret) pass-1 inside the one-wave program."""
+    """Fused-kernel (interpret) pass-1 inside the one-wave program."""
     monkeypatch.setenv("SMAFA_TPU_ONEWAVE", "1")
     monkeypatch.setenv("SMAFA_TPU_PALLAS_MIN2", "interpret")
     L60 = 60
@@ -158,8 +158,8 @@ def test_onewave_mosaic_pass1(monkeypatch):
 
 def test_onewave_auto_latency_gate(monkeypatch):
     """Auto mode follows the measured dispatch latency AND requires the
-    Mosaic pass-1 (the XLA fused-count scan breaks fusion — measured
-    422 vs 113 ms — so auto never ships it); env pins both."""
+    fused-kernel pass-1 (the XLA fused-count scan's sequential count
+    breaks fusion, so auto never ships it); env pins both."""
     L60 = 60
     rng = np.random.default_rng(6)
     codes = rng.integers(0, 3, (2048, L60)).astype(np.uint8)
@@ -175,7 +175,7 @@ def test_onewave_auto_latency_gate(monkeypatch):
     r2 = ScanRunner(codes, L60, mesh=build_mesh(1, 1))
     h2 = r2.bestfull_async(q, None)
     assert len(h2) <= 7 or h2[7] is None  # low latency -> 3-wave
-    # without the Mosaic pass-1, auto stays 3-wave even at high latency
+    # without the kernel pass-1, auto stays 3-wave even at high latency
     monkeypatch.setenv("SMAFA_TPU_DISPATCH_MS", "150")
     monkeypatch.setenv("SMAFA_TPU_PALLAS_MIN2", "0")
     r3 = ScanRunner(codes, L60, mesh=build_mesh(1, 1))
@@ -188,7 +188,7 @@ def test_onewave_auto_latency_gate(monkeypatch):
 
 def test_tie_adaptive_fused_count(monkeypatch):
     """Tie-heavy batches flip the NEXT dispatch to the fused-count
-    Mosaic phase A (min2c) — results byte-identical, tcount wave
+    kernel phase A (min2c) — results byte-identical, tcount wave
     skipped (the handle carries the count)."""
     monkeypatch.setenv("SMAFA_TPU_ONEWAVE", "0")
     monkeypatch.setenv("SMAFA_TPU_PALLAS_MIN2", "interpret")

@@ -2,7 +2,7 @@
 
 The hit-mask pack epilogue has three exact lowerings (ops/distance.py
 ``_pack_bits``): the naive 32-wide reduce, a pairwise doubling tree, and
-an MXU matmul against a block-diagonal powers-of-two int8 matrix. All
+an int8 matmul against a block-diagonal powers-of-two matrix. All
 three must produce identical words at any chunk size, and compact_scan
 must return identical hit sets under each.
 """

@@ -157,7 +157,7 @@ def test_pair_count_fuzz_vs_oracle():
 
 
 def test_runner_pallas_min2_interpret_parity():
-    """ScanRunner's Mosaic phase-A integration (eligibility, embedded db
+    """ScanRunner's fused-kernel phase-A integration (eligibility, db
     twin, key unpacking) — interpret mode so the CPU suite covers it."""
     from smafa_tpu.parallel import sharded
 
@@ -182,7 +182,7 @@ def test_runner_pallas_min2_interpret_parity():
     {"SMAFA_TPU_FORCE_SHARD": "1", "SMAFA_TPU_MESH": "2,4"},
 ])
 def test_runner_pallas_min2_interpret_sharded_mesh(mesh_env):
-    """Multi-device Mosaic phase A (round 4): the kernel runs per 'w'
+    """Multi-device kernel phase A: the kernel runs per 'w'
     shard inside shard_map, keys globalize with offset adds, the fused
     tie count merges with a conditional psum — byte-equal to the XLA
     mesh path on the 8-device CPU mesh."""
@@ -217,7 +217,7 @@ def test_runner_pallas_min2_interpret_sharded_mesh(mesh_env):
 
 
 def test_runner_pallas_min2_interpret_pair_mode(monkeypatch):
-    """Mosaic phase A in shard-local key (pair) mode: fake the packing
+    """Kernel phase A in shard-local key (pair) mode: fake the packing
     overflow so shard-local keys + pair merge engage, interpret kernel
     vs the XLA pair path and the single-device oracle."""
     from smafa_tpu.ops import distance as D
@@ -253,7 +253,7 @@ def test_runner_pallas_min2_interpret_pair_mode(monkeypatch):
 
 
 def test_ring_pallas_min2_interpret():
-    """Mosaic phase A on the ring layout: codes shards rotate, each step
+    """Kernel phase A on the ring layout: codes shards rotate, each step
     embeds + runs the kernel, pair carries fold with the fused count —
     equal to the XLA ring and the single-device oracle."""
     from smafa_tpu.parallel import ring, sharded
@@ -284,7 +284,7 @@ def test_ring_pallas_min2_interpret():
 
 @pytest.mark.parametrize("L", [60, 90, 120])
 def test_pallas_fused_count_fuzz(L):
-    """Randomized tie-shape fuzz of the fused-count Mosaic path (single
+    """Randomized tie-shape fuzz of the fused-count kernel path (single
     device AND the 8-device mesh, interpret) against the literal
     oracle, at window lengths where the rank-4 embedding is active."""
     from smafa_tpu.parallel import sharded

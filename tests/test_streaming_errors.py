@@ -2,7 +2,7 @@
 
 The reference processes records one at a time, so hits for every record
 BEFORE an invalid base / length mismatch are printed before it dies
-(reference lib.rs:231-318). The batched TPU engine must preserve that:
+(reference lib.rs:231-318). The batched engine must preserve that:
 the pending (already-scanned) batch drains before the error propagates,
 on both ingest paths.
 """

@@ -2,7 +2,7 @@
 """End-to-end wall-clock on the BASELINE.json query configs.
 
 BASELINE.json names five configs; this tool measures the two query ones
-that docs/PERFORMANCE.md did not yet pin end to end:
+end to end:
 
 - config 2: "SingleM 60bp marker-window db, 10k sequences, 10k queries,
   single chip"

@@ -55,12 +55,9 @@ for n in range(START, START + COUNT):
     os.environ["SMAFA_TPU_PACK"] = ["reduce", "tree", "matmul"][(n // 11) % 3]
     os.environ["SMAFA_TPU_PAIR_COUNT"] = ["", "0", "1"][(n // 13) % 3]
     os.environ["SMAFA_TPU_TIE_ITER"] = ["", "0"][(n // 17) % 2]
-    # Round-5 surfaces: the one-wave best-hit program, the Mosaic
-    # compaction mask (interpret mode on CPU), and chunked-ingest
+    # Round-5 surfaces: the one-wave best-hit program and chunked-ingest
     # window sizes small enough to split toy inputs across windows.
     os.environ["SMAFA_TPU_ONEWAVE"] = ["0", "1", "0"][(n // 3) % 3]
-    os.environ["SMAFA_TPU_PALLAS_COMPACT"] = \
-        ["0", "interpret", "0"][(n // 19) % 3]
     _chunk = ["", "97", "331"][(n // 23) % 3]
     if _chunk:
         os.environ["SMAFA_TPU_INGEST_CHUNK"] = _chunk

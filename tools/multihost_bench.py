@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Multi-host scaling benchmark (run on a real TPU pod slice).
+"""Multi-host scaling benchmark (run on every host of a multi-host run).
 
 Measures aggregate query x db comparisons/sec across N processes against
 the single-process number — the >85%-at-2-hosts scaling-efficiency north
@@ -10,7 +10,7 @@ star (BASELINE.json). Usage, on EVERY host of the slice:
 
 The db is synthesized identically on every process (seeded), sharded over
 the global mesh by ScanRunner's multi-host path; the scan is the
-production fused dual-key kernel. Process 0 prints one JSON line:
+production phase-A program. Process 0 prints one JSON line:
 {"metric": "multihost_comparisons_per_sec", "value": ..., "num_processes": N}.
 
 Single-chip baseline for the efficiency ratio: `python bench.py`.

@@ -3,8 +3,8 @@
 Builds a native-format db of N 60 bp windows (mmap-sliceable; zero
 decode cost), loads it once, then streams K query batches through the
 engine's runner measuring per-batch marginal time — separating the
-one-time costs (one-hot expand, H2D upload, compile) from the sustained
-scan rate the 2m44s cold number in docs/PERFORMANCE.md hides.
+one-time costs (one-hot expand, host-to-device upload, compile) from
+the sustained scan rate a cold end-to-end number hides.
 
     python tools/query_scale_bench.py [--rows 10000000] [--batch 16384]
                                       [--batches 8] [--mode best|kmode]
